@@ -4,7 +4,7 @@
 // framework's own native data path: an mmap'd baseline-TIFF decoder (strip or
 // tile layout, 8/16/32-bit unsigned + float32/64, little or big endian) and a
 // multi-threaded windowed reader with an LRU strip cache, so host-side tile
-// feeding never becomes the bottleneck ahead of the TPU ingest. Exposed as a
+// feeding never becomes the bottleneck ahead of the device ingest. Exposed as a
 // plain C ABI consumed via ctypes (no pybind11 in the image).
 //
 // Build: g++ -O3 -march=native -shared -fPIC -pthread pcmi_io.cpp -o libpcmi_io.so

@@ -1,4 +1,4 @@
-"""pcmi_tpu — TPU-native 3D point-cloud / multi-day satellite imagery framework.
+"""pcmi_tpu — JAX 3D point-cloud / multi-day satellite imagery framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
 ``rafael-alani/3d-point-cloud-multiday-imagery`` (a napari plugin host whose
@@ -6,9 +6,10 @@ flagship is a multi-day WV3 stereo -> disparity -> height-map -> 3D point
 cloud pipeline; see reference ``README.md:1`` and
 ``members/rafael/disparity/``).
 
-Design principles (TPU-first, not a port):
+Design principles (accelerator-first, not a port):
 
-* All compute paths are jittable JAX; hot kernels are Pallas.
+* All compute paths are jittable JAX; the SGM recurrence has a Pallas
+  kernel for the GPU.
 * Geometry (RPC cameras, epipolar rectification) is closed-form math in JAX,
   replacing the reference's external GDAL / Ames Stereo Pipeline binaries
   (reference ``preprocessing.py:7-96``, ``processing.py:12-18``).
@@ -23,7 +24,7 @@ Import layout::
     pcmi_tpu.interface   plugin contract (layer tuples, reference interface.py)
     pcmi_tpu.config      typed dataclass configs
     pcmi_tpu.geometry    RPC cameras, rectification, triangulation, pairs
-    pcmi_tpu.ops         shared array ops + stereo kernels (Pallas)
+    pcmi_tpu.ops         shared array ops + stereo kernels
     pcmi_tpu.models      Flax models (U-Nets, GAN, DIP, diffusion, detection)
     pcmi_tpu.pipelines   user-facing components (height-map, fusion, ...)
     pcmi_tpu.parallel    mesh / sharding / halo-exchange utilities

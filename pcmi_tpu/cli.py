@@ -336,8 +336,8 @@ def cmd_stream(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    # bench.py lives at the repo root (the driver contract), which is only
-    # importable when cwd happens to be the root — load it by path instead
+    # bench.py lives at the repo root, which is only importable when cwd
+    # happens to be the root — load it by path instead
     import importlib.util
 
     import pcmi_tpu
@@ -351,8 +351,7 @@ def cmd_bench(args) -> int:
     spec = importlib.util.spec_from_file_location("pcmi_bench", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.main()
-    return 0
+    return mod.main()
 
 
 def main(argv=None) -> int:
@@ -380,6 +379,9 @@ def main(argv=None) -> int:
     sub.add_parser("bench", help="run the standard benchmark")
 
     args = ap.parse_args(argv)
+    from pcmi_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return {
         "list": cmd_list,
         "run": cmd_run,

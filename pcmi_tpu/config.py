@@ -41,7 +41,9 @@ class StereoConfig:
     sgm_p1: float = 0.03
     sgm_p2: float = 0.48
     sgm_paths: int = 4               # L->R, R->L, T->B, B->T
-    # "auto": Pallas kernels on TPU, XLA scans elsewhere; "pallas"/"xla" force
+    # SGM implementation: "auto" runs the Pallas (Triton) kernel where the
+    # default backend is a GPU and the XLA scans elsewhere; "pallas" and
+    # "xla" force one (the kernel does not compile for the CPU).
     sgm_backend: str = "auto"
     # Right-view disparity for the L/R consistency check:
     #   "horizontal" (default) — SGM on the derived right cost volume with
@@ -55,16 +57,10 @@ class StereoConfig:
     #   right frame (C_R(y,x,d) = C_L(y,x+d,d)); the standard single-volume
     #   trick (libSGM / OpenCV CUDA SGM), cheapest but the check loses
     #   independence: +0.0-0.25 m RMSE measured.
-    #   "diagonal" — semantics of "derived" (diagonal argmin over the left
-    #   aggregate, integer WTA — OpenCV SGBM's own disp2 recipe), fused on
-    #   TPU so the left Pallas SGM emits the aggregate and the right view
-    #   costs ONE extra volume read+write instead of the derived/horizontal
-    #   chains (~3 vs ~14 volume passes). Measured on the bench headline
-    #   scene: pair core 16.4 -> 14.8 ms (+10%) but RMSE 0.456 -> 0.641 m
-    #   (0.546 with lr_threshold tightened to 0.5) — the aggregate-derived
-    #   right view loses the check's independence, so "horizontal" stays
-    #   the default; pick "diagonal" when throughput outranks the last
-    #   0.1 m of accuracy.
+    #   "diagonal" — "derived" with an integer right-view WTA (OpenCV
+    #   SGBM's own disp2 recipe). The aggregate-derived right view loses
+    #   the check's independence and raises RMSE on the synthetic headline
+    #   scene, so "horizontal" stays the default.
     right_sgm: str = "horizontal"
     # Sub-pixel parabola for the right-view WTA: off by default — the L/R
     # check tolerates integer right disparities (|dL - dR| <= 1.5 px) and
@@ -89,12 +85,10 @@ class StereoConfig:
     margin_undefined: int = 24       # invalid-mask dilation (ref constants.py:64)
     cost_type: str = "census_ad"     # census hamming + abs-diff mix
     # Storage dtype of the (D, H, W) cost/aggregation volumes — the
-    # matcher's HBM traffic is dominated by streaming these, so bf16
+    # matcher's memory traffic is dominated by streaming these, so bf16
     # halves the memory-bound stages. All arithmetic (box aggregation, SGM
     # recurrence state, WTA parabola) stays float32; only the stored
-    # volumes quantise (~0.4% of a unit-scale cost — measured: no change
-    # in height RMSE at the bench gates). "auto": bfloat16 on TPU, float32
-    # elsewhere (keeps CPU kernel-parity tests bit-exact).
+    # volumes quantise (~0.4% of a unit-scale cost). "auto" is float32.
     cost_dtype: str = "auto"
     census_window: int = 7           # census transform window (<=7 for 48-bit)
     ad_weight: float = 0.3           # weight of AD term vs census term
@@ -211,11 +205,9 @@ class StereoConfig:
     adapt_local_disp: int = 96       # local window width (multiple of 16)
     adapt_coarse_scale: int = 4      # coarse-pass downsample factor
     # Warp granularity: the right view shifts by one offset per
-    # adapt_warp_chunk-px span (contiguous chunk slices — a per-pixel
-    # gather along lanes costs ~7 ms/Mpix-plane on TPU; measured on-chip:
-    # 64-px chunks ~2 ms, 32-px chunks pathological ~27 ms from lane-tile
-    # misalignment). Must divide the canvas width; canvases are padded to
-    # 128 (TilingConfig.pad_multiple).
+    # adapt_warp_chunk-px span (contiguous chunk slices instead of a
+    # per-pixel gather). Must divide the canvas width; canvases are padded
+    # to 128 (TilingConfig.pad_multiple).
     adapt_warp_chunk: int = 64
 
     def __post_init__(self):
@@ -232,7 +224,7 @@ class StereoConfig:
         if self.right_sgm not in ("horizontal", "full", "derived",
                                   "diagonal"):
             raise ValueError(f"unknown right_sgm {self.right_sgm!r} "
-                             "(expected horizontal/full/derived)")
+                             "(expected horizontal/full/derived/diagonal)")
         if self.sgm_backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown sgm_backend {self.sgm_backend!r}")
         if self.cost_dtype not in ("auto", "bfloat16", "float32"):
@@ -352,7 +344,7 @@ class TilingConfig:
 
     tile: int = 1024
     halo: int = 160                  # >= max_disp/2 + block for stereo tiles
-    pad_multiple: int = 128          # align to TPU lanes
+    pad_multiple: int = 128          # canvas alignment (fixed jit shapes)
 
 
 @dataclass(frozen=True)

@@ -15,7 +15,7 @@ rectification is closed-form affine epipolar geometry:
    purely horizontal, as dense stereo requires.
 4. Triangulation: with rectified affine cameras the 4 observation equations
    are linear with a *constant* design matrix, so 3D recovery is one
-   precomputed (3, 4) matrix applied per pixel — a batched matmul on the MXU.
+   precomputed (3, 4) matrix applied per pixel — one batched matmul.
 
 Geometry solves run on host in float64 numpy (tiny: 5-vector SVD); warps and
 triangulation are jitted JAX.

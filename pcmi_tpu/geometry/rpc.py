@@ -43,6 +43,10 @@ def _monomials_np(L, P, H):
     )
 
 
+def _dot(m, coeffs):
+    return jnp.matmul(m, coeffs, precision=jax.lax.Precision.HIGHEST)
+
+
 def _monomials(L, P, H):
     one = jnp.ones_like(L)
     return jnp.stack(
@@ -149,10 +153,12 @@ class RPCCamera:
         P = (lat - self.lat_off) / self.lat_scale
         H = (h - self.height_off) / self.height_scale
         m = _monomials(L, P, H)
-        row_n = m @ self.line_num
-        row_d = m @ self.line_den
-        col_n = m @ self.samp_num
-        col_d = m @ self.samp_den
+        # HIGHEST: a float32 dot that names no precision may run in TF32 on
+        # a GPU, ~1e-3 relative — tens of pixels at RPC line/sample scales
+        row_n = _dot(m, self.line_num)
+        row_d = _dot(m, self.line_den)
+        col_n = _dot(m, self.samp_num)
+        col_d = _dot(m, self.samp_den)
         row = self.line_off + self.line_scale * row_n / row_d
         col = self.samp_off + self.samp_scale * col_n / col_d
         return col, row
@@ -193,8 +199,8 @@ class RPCCamera:
 
         def fwd(L, P):
             m = _monomials(L, P, jnp.broadcast_to(H, jnp.shape(L)))
-            cn = (m @ self.samp_num) / (m @ self.samp_den)
-            rn = (m @ self.line_num) / (m @ self.line_den)
+            cn = _dot(m, self.samp_num) / _dot(m, self.samp_den)
+            rn = _dot(m, self.line_num) / _dot(m, self.line_den)
             return cn - cn_t, rn - rn_t
 
         def step(_, LP):

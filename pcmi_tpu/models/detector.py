@@ -4,7 +4,7 @@ Capability parity with the reference's YOLO-OBB training path
 (``members/jasraj/object_annotation/obj_model.py:39-52`` trains
 ``yolo26n-obb.pt`` for 100 epochs): the framework must be able to TRAIN a
 detector, not just run one. Anchor-free center-point detection
-(CenterNet-style) is the TPU-idiomatic choice — dense per-pixel heads, no
+(CenterNet-style) is the accelerator-idiomatic choice — dense per-pixel heads, no
 anchor matching, no NMS-dependent training, decode = max-pool peak picking:
 
 * backbone: small norm-free U-Net trunk (shared with the SR family)

@@ -8,7 +8,7 @@ pretrained Stable-Diffusion weights (which the reference downloads from HF,
 weights, per-step fusion of tile noise predictions, and re-noising of the
 unmasked region to lock known content.
 
-TPU-native form: the timestep loop is a ``lax.scan``; all tiles are ONE
+Accelerator form: the timestep loop is a ``lax.scan``; all tiles are ONE
 vmapped epsilon-model batch per step (the reference loops tiles in Python,
 ``:184-216``); blending is a scatter-add with precomputed Gaussian weights.
 The epsilon model is pluggable — any ``apply(params, x_t, t, cond) -> eps``;
@@ -60,7 +60,7 @@ class TextEncoder(nn.Module):
     """Tiny trained-from-scratch prompt encoder: hashed word embeddings →
     order-aware 1D conv mixing → masked mean-pool → conditioning vector.
 
-    The honest TPU-native analogue of the reference's CLIP text encoder
+    The honest in-framework analogue of the reference's CLIP text encoder
     (``stan/plugin.py:156-170``): compositional (multi-word prompts
     combine), graded (classifier-free guidance scales its influence), and
     trained jointly with the epsilon model on caption-labelled scenes —

@@ -6,7 +6,7 @@ through a small U-Net; Adam minimises MSE against the *known* pixels only,
 and the converged output fills the holes. The reference runs 800-1000
 Python-loop Adam iterations on CUDA; here the full loop is a
 ``lax.scan`` over train steps inside one jit — zero per-step dispatch, the
-shape TPUs want for small-model inner loops.
+shape accelerators want for small-model inner loops.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Capability parity with the reference's offline training paths (SURVEY §3.5):
 * Inpaint GAN (notebook cell 28): per step — synthesise hole masks on
   device, corrupt with a blur fill, D hinge step, G step with
   L1+grad+ring+GAN. The reference uses torch AMP; here mixed precision is
-  bf16 compute via a dtype policy (TPU-native, no loss scaling needed).
+  bf16 compute via a dtype policy (no loss scaling needed).
 * SR GAN (cells 42-43): MixGE reconstruction with a GAN term enabled after
   a warmup step count (``w_gan=0.003``, 10-epoch warmup in the reference).
 * Checkpoint/resume: orbax (reference resumes from ``.pt`` checkpoints,

@@ -16,7 +16,7 @@ Rebuilds the reference's torch model zoo in Flax linen:
   (GroupNorm with one group per channel) is the equivalent normalisation
   and keeps the training step purely functional.
 
-All convolutions are NHWC so XLA lowers them straight onto the MXU;
+All convolutions are NHWC so XLA lowers them straight onto its convolution kernels;
 channel widths stay multiples of 32 to tile cleanly.
 """
 

@@ -3,7 +3,7 @@
 Replaces the OpenCV filtering the reference leans on: Gaussian blurs
 (``restoration/core.py:177-183``), box means, the WLS disparity post-filter
 (``disparity.py:287-310``) — stood in for by the fast guided filter (He et
-al., closed-form box-filter algebra, perfectly TPU-shaped) — the Gabor bank
+al., closed-form box-filter algebra, fully vectorised) — the Gabor bank
 (``land_use_classification/core.py:92-112``), and unsharp masking
 (``restoration/core.py:192-207``).
 
@@ -28,7 +28,7 @@ def _conv1d_along(img: jnp.ndarray, kernel: jnp.ndarray, axis: int) -> jnp.ndarr
     pad_width[axis] = (pad, pad)
     padded = jnp.pad(img, pad_width, mode="reflect")
     # Express as a sum of shifted slices: k is small/static, XLA fuses this
-    # into a single vectorized expression — no gather, VPU-friendly.
+    # into a single vectorized expression — no gather.
     out = jnp.zeros_like(img)
     for i in range(k):
         sl = [slice(None)] * img.ndim
@@ -59,7 +59,7 @@ def gaussian_filter(img: jnp.ndarray, sigma: float, radius: int | None = None):
 def box_filter(img: jnp.ndarray, radius: int) -> jnp.ndarray:
     """Mean filter with window ``2r+1``, computed as two 1-D sums.
 
-    For the small radii used here a shift-sum beats a cumsum on TPU (static
+    For the small radii used here a shift-sum beats a cumsum (static
     slices, fully fused); normalization uses the constant window area with
     reflect padding so edges stay unbiased.
     """
@@ -80,7 +80,7 @@ def guided_filter(
     Stands in for the reference's ``cv2.ximgproc.createDisparityWLSFilter``
     post-filtering (``disparity.py:287-310``): both are edge-preserving
     global-ish smoothers; the guided filter is pure box-filter algebra so it
-    maps onto the VPU with no iterative solve.
+    is elementwise work with no iterative solve.
     """
     I = guide.astype(jnp.float32)
     p = src.astype(jnp.float32)
@@ -157,7 +157,7 @@ def gabor_bank(
 def filter_bank_2d(img: jnp.ndarray, kernels: jnp.ndarray) -> jnp.ndarray:
     """Correlate ``(H, W)`` image with ``(N, k, k)`` kernels -> ``(N, H, W)``.
 
-    Uses ``lax.conv_general_dilated`` so XLA lowers it to the MXU.
+    Uses ``lax.conv_general_dilated`` so XLA lowers it to its convolution kernels.
     """
     h, w = img.shape
     lhs = img.reshape(1, 1, h, w).astype(jnp.float32)
@@ -189,12 +189,11 @@ def _batcher_pairs(n: int):
 def _median_along(img: jnp.ndarray, size: int, axis: int) -> jnp.ndarray:
     """1-D running median via a Batcher min/max selection network.
 
-    ``jnp.median`` lowers to a SORT of the stacked (size, H, W) planes —
-    ~6 ms at the flagship canvas on the target chip, dominated by
-    materialising and re-reading the stack. The sorting network is pure
-    elementwise min/max over ``size`` shifted VIEWS of one padded array,
-    which XLA fuses into a single streaming pass (no stack, no sort):
-    measured >3x faster for size 13.
+    ``jnp.median`` lowers to a SORT of the stacked (size, H, W) planes,
+    dominated by materialising and re-reading the stack. The sorting
+    network is pure elementwise min/max over ``size`` shifted VIEWS of one
+    padded array, which XLA fuses into a single streaming pass (no stack,
+    no sort).
     """
     pad = size // 2
     pad_width = [(0, 0)] * img.ndim
@@ -219,7 +218,7 @@ def separable_median_filter(img: jnp.ndarray, size: int = 9) -> jnp.ndarray:
     The separable approximation of a true 2-D median — standard for speckle
     gating (the role of OpenCV's ``filterSpeckles`` post-SGBM). Memory stays
     O(size·H·W) instead of O(size²·H·W), and each pass is a static
-    shift-stack + ``jnp.median`` — sort-free on the VPU for small ``size``.
+    shift-stack + ``jnp.median`` — sort-free for small ``size``.
     """
     out = _median_along(img.astype(jnp.float32), size, 0)
     return _median_along(out, size, 1)

@@ -71,7 +71,7 @@ def distance_transform(mask: jnp.ndarray, max_dist: int = 32) -> jnp.ndarray:
     False pixel, clipped at ``max_dist``.
 
     Chamfer-style: iterated 3x3 min-plus sweeps expressed as reduce_window
-    passes — O(max_dist) fused VPU passes instead of scipy's sequential EDT
+    passes — O(max_dist) fused elementwise passes instead of scipy's sequential EDT
     (ref ``marcin/models/utils.py:16`` uses ``distance_transform_edt`` only to
     feather blend masks, where a clipped chamfer distance is equivalent).
     """

@@ -51,13 +51,9 @@ def robust_bounds(img: jnp.ndarray, mask: jnp.ndarray, nb: float = 8.0,
 
     def _med_mad_grid(im, mk):
         # data range from two fused reductions, then two-stage 64-bin grid
-        # medians — the sort the exact path pays costs ~7 ms/plane on the
-        # target chip, a single 128-bin grid pass ~0.7 ms (XLA stops
-        # fusing the [N, bins] compare past ~64 lanes), while each 64-bin
-        # pass is noise-level; two refining passes give 64² effective
-        # bins, far inside the x8 MAD slack of the bounds. Runs at FULL
-        # resolution: strided subsampling costs a ~2-5 ms lane relayout on
-        # TPU while the extra counted pixels are essentially free.
+        # medians instead of the sort the exact path pays; two refining
+        # passes give 64² effective bins, far inside the x8 MAD slack of
+        # the bounds. Runs at full resolution.
         lo = jnp.min(jnp.where(mk, im, jnp.inf))
         hi = jnp.max(jnp.where(mk, im, -jnp.inf))
         lo = jnp.where(jnp.isfinite(lo), lo, 0.0)
@@ -149,11 +145,8 @@ def snr_ratio(img: jnp.ndarray, mask: jnp.ndarray,
     m4 = (mask[1:-1, 1:-1] & mask[:-2, 1:-1] & mask[2:, 1:-1]
           & mask[1:-1, :-2] & mask[1:-1, 2:])
     del subsample  # kept for API stability; full-res is the fast form
-    # one-pass FULL-RESOLUTION grid medians: the sort-based quantile
-    # (~7 ms/plane), a sequential bisection loop (~0.4 ms/step kernel
-    # latency) and even a [::s] strided subsample (~2-5 ms lane relayout)
-    # all lose to a single fused compare-and-count pass over every pixel
-    # (~0.05 ms at the flagship canvas — see masked_median_grid)
+    # one-pass FULL-RESOLUTION grid medians: a fused compare-and-count
+    # pass over every pixel instead of a sort (see masked_median_grid)
     noise = masked_median_grid(jnp.abs(lap), m4,
                                0.0, 8.0) * (1.4826 / jnp.sqrt(20.0))
     hp = jnp.abs(f - gaussian_filter(f, sigma=2.0))
@@ -172,11 +165,9 @@ def masked_quantile_grid(x: jnp.ndarray, mask: jnp.ndarray,
     :func:`masked_median_grid` trick), then narrows the bracket to the
     bin where the cumulative count crosses ``q * n_valid``. Effective
     resolution is ``(hi - lo) / bins**stages`` — at the defaults that is
-    4096 equivalent bins for the cost of two fused passes, each of which
-    the measured chip runs at noise level (<0.1 ms on the flagship
-    canvas) while a single 128-bin pass costs ~0.7 ms: past ~64 lanes of
-    thresholds XLA stops fusing the broadcast compare into the reduce and
-    materialises the [N, bins] intermediate.
+    4096 equivalent bins for the cost of two fused passes. Bins stay at
+    64 per pass because past that XLA may stop fusing the broadcast
+    compare into the reduce and materialise the [N, bins] intermediate.
     """
     xf = x.reshape(-1)
     mf = mask.reshape(-1)
@@ -213,10 +204,8 @@ def masked_median_grid(x: jnp.ndarray, mask: jnp.ndarray,
 
     Counts elements under each of ``bins`` candidate thresholds spanning
     [lo, hi] simultaneously (one compare-and-reduce kernel), then
-    interpolates the crossing linearly. On the target chip BOTH standard
-    quantile shapes lose badly to this: a quarter-megapixel ``jnp.sort``
-    costs ~7 ms, and a 16-step bisection loop pays ~0.4 ms of small-kernel
-    latency PER sequential step — while this single pass is sub-ms.
+    interpolates the crossing linearly: one streaming pass instead of a
+    ``jnp.sort`` or a sequential bisection loop of small kernels.
 
     ``geometric`` spaces the thresholds logarithmically over
     [hi/2^12, hi] — the right grid for non-negative, scale-free

@@ -5,16 +5,16 @@ This is the multi-day fusion layer. The reference README advertises
 but ships no fusion code — each stereo pair emits an independent cloud
 (reference ``plugin.py:106,220-233``); the only K-means in the repo clusters
 OBIA superpixels (``land_use_classification/core.py:227``). Here the
-advertised capability is implemented for real, TPU-first:
+advertised capability is implemented for real, on the accelerator:
 
 * plane fit       — the reference's full-frame SVD of an ~10^6 x 3 matrix
                     (``plugin.py:160-175``) becomes a weighted 3x3 covariance
-                    (one MXU matmul) + closed-form 3x3 ``eigh``.
+                    (one matmul) + closed-form 3x3 ``eigh``.
 * K-means         — ``lax.scan`` over iterations; assignment is a distance
-                    matmul (MXU); centroid update is ``segment_sum``.
+                    matmul; centroid update is ``segment_sum``.
 * kNN             — brute-force chunked distance matmuls + ``lax.top_k``;
-                    no KD-tree (trees are pointer-chasing, hostile to the
-                    vector unit; a (N x N) tiled matmul saturates the MXU).
+                    no KD-tree (trees are pointer-chasing, hostile to
+                    vector hardware; a tiled matmul is dense work).
 * gridding        — DSM rasterisation via sort-segmented cell sums with
                     an optional robust re-pass (MAD rejection).
 * ICP             — cross-date registration: chunked NN correspondence +
@@ -86,7 +86,7 @@ class KMeansResult(NamedTuple):
 
 
 def _pairwise_sqdist(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """(N, K) squared distances via the |a|^2 - 2ab + |b|^2 expansion (MXU)."""
+    """(N, K) squared distances via the |a|^2 - 2ab + |b|^2 expansion."""
     an = jnp.sum(a * a, axis=1, keepdims=True)
     bn = jnp.sum(b * b, axis=1)
     ab = jnp.dot(a, b.T, precision=HIGHEST)
@@ -269,10 +269,9 @@ def grid_fuse(
     rejecting samples > ``robust_sigma`` cell-stddevs from it. Returns
     ``(dsm, count)`` with NaN where a cell received no samples.
 
-    TPU-shaped: per-cell statistics come from one sort by cell id plus
-    segmented scans (:mod:`pcmi_tpu.ops.segmented` — random-access
-    scatter/gather runs ~5x slower than streaming sort+scan on TPU); the
-    only scatter is the cell-sized compacted grid write
+    Per-cell statistics come from one sort by cell id plus segmented
+    scans (:mod:`pcmi_tpu.ops.segmented`); the only scatter is the
+    cell-sized compacted grid write
     (:func:`pcmi_tpu.ops.segmented.grid_segment_sums`).
     """
     from pcmi_tpu.ops.segmented import (
@@ -367,9 +366,10 @@ def icp(
             H = jnp.einsum("ni,nj->ij", (moved - mu_s) * w[:, None],
                            matched - mu_d, precision=HIGHEST)
             U, _, Vt = jnp.linalg.svd(H)
-            det = jnp.linalg.det(Vt.T @ U.T)
+            det = jnp.linalg.det(jnp.matmul(Vt.T, U.T, precision=HIGHEST))
             S = jnp.diag(jnp.array([1.0, 1.0, 1.0]) .at[2].set(det))
-            dR = Vt.T @ S @ U.T
+            dR = jnp.matmul(jnp.matmul(Vt.T, S, precision=HIGHEST), U.T,
+                            precision=HIGHEST)
         else:
             dR = jnp.eye(3)
         dt = mu_d - jnp.dot(dR, mu_s, precision=HIGHEST)

@@ -1,11 +1,7 @@
-"""Sort-segmented reductions: the TPU-native substitute for scatter/gather.
+"""Sort-segmented reductions in place of per-point scatter/gather.
 
-Random-access scatter (``segment_sum``) and gather (``table[ids]``) run at
-~140 M elements/s on TPU — they serialise on HBM random access. A
-multi-operand sort streams at ~730 M elements/s, and cumulative ops are
-pure streaming VPU work. Any "per-cell statistics, then per-point
-comparison" pattern (robust gridding, voxel filters, per-cell z-gates) is
-therefore ~an order of magnitude faster as:
+Any "per-cell statistics, then per-point comparison" pattern (robust
+gridding, voxel filters, per-cell z-gates) is computed as:
 
   1. ONE ``lax.sort`` keyed on cell id, payloads carried along (no explicit
      permutation gathers),
@@ -16,12 +12,11 @@ therefore ~an order of magnitude faster as:
 
 Implementation constraints discovered on this toolchain (keep them):
 
-* ``lax.associative_scan`` with tuple operands compiles pathologically on
-  TPU at multi-million-element sizes — tens of minutes, in both 1-D and
-  blocked 2-D form. Only the NATIVE cumulative primitives (``cumsum``,
-  ``cummax``/``cummin``) compile and run sanely, so everything below is
-  built from those plus one tiny sequential ``lax.scan`` over block
-  carries.
+* ``lax.associative_scan`` with tuple operands compiled pathologically at
+  multi-million-element sizes, in both 1-D and blocked 2-D form, so
+  everything below is built from the NATIVE cumulative primitives
+  (``cumsum``, ``cummax``/``cummin``) plus one tiny sequential
+  ``lax.scan`` over block carries.
 * The segmented running sum "reset at each boundary" is recovered
   gather-free via monotonicity: for NON-NEGATIVE payloads the in-block
   cumsum ``S`` is non-decreasing, so the prefix value at each point's most
@@ -50,9 +45,8 @@ import jax
 import jax.numpy as jnp
 
 # Block width of the two-level scans. The per-block carry combine is a
-# sequential lax.scan over N/_LANES steps — the dominant cost at small
-# widths (1024 → 150 ms AND a 5-minute compile at 4.2 M points on TPU;
-# 16384 → 20 ms / 8 s compile). In-block cumsum magnitude stays
+# sequential lax.scan over N/_LANES steps, the dominant cost at small
+# widths; a wide block keeps it short. In-block cumsum magnitude stays
 # ≤ _LANES·max|x| ≈ 4e5 for metre-scale payloads → f32 ulp ~0.03 on
 # segment totals, far below the sigma-gate's noise floor.
 _LANES = 16384
@@ -157,7 +151,7 @@ def robust_sigma_gate(
     beyond ``sigma`` stddevs, recompute from the survivors. Semantics match
     the scatter/gather formulation it replaces
     (:func:`pcmi_tpu.pipelines.streaming.dsm_update`'s tile-local gate) at
-    ~an order of magnitude less HBM random access.
+    ~an order of magnitude less random memory access.
 
     The mean/std are shift-invariant, so the non-negativity shift of the
     value payloads (``v - min(v)``) drops out of the gate comparison.
@@ -188,9 +182,7 @@ def grid_segment_sums(ids_sorted: jnp.ndarray, boundary: jnp.ndarray,
     """Per-cell sums of sorted-by-id payloads; returns ``(num, k)``.
 
     The direct ``segment_sum`` grid write scatters every POINT row —
-    N-sized random access at the ~140 M elem/s floor even with the
-    sorted-indices lowering (measured 18.5 ms / 10.4 ms at 1.18 M rows,
-    65 k cells). This form instead:
+    N-sized random access. This form instead:
 
       1. per-point segment totals via the blocked run sums (streaming),
       2. compacts each segment's END row to the front with one more
@@ -201,8 +193,7 @@ def grid_segment_sums(ids_sorted: jnp.ndarray, boundary: jnp.ndarray,
          hardware floor actually charges for is now cell-sized, not
          point-sized.
 
-    Measured end to end at the same shape: ~4 ms. Bit-comparable to the
-    segment_sum form within f32 reduction-order slack (the totals come
+    Bit-comparable to the segment_sum form within f32 reduction-order slack (the totals come
     from the same blocked run sums the robust gate uses).
     """
     n = ids_sorted.shape[0]

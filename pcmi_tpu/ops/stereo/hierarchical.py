@@ -16,13 +16,11 @@ edge-band / photoconsistency in ``pair_core``). The composed disparity is
 ``base + local``; the right-view disparity for downstream rechecks is
 resampled from the composed field.
 
-Measured trade-off (v5e chip, the bench D=288 scene at 896², bf16
-volumes): full search 109.7 ms / 0.94 m RMSE / 65% completeness;
-hierarchical 45.9 ms / 1.27 m (local_disp=16), 55.5 ms / 1.15 m
-(local_disp=48). ~2.4x the throughput, but the base warp stretches
-texture across disparity discontinuities and the half-res pass bakes in
-blunders the local window cannot undo — it misses the ≤1 m gate on
-built-up scenes, which is why full search stays the default
+Trade-off on the D=288 synthetic scene: it does less than half the work,
+but the base warp stretches texture across disparity discontinuities and
+the half-res pass bakes in blunders the local window cannot undo — it
+misses the ≤1 m gate on built-up scenes, which is why full search stays
+the default
 (``StereoConfig.hierarchical=False``). Use it where relief is smooth or
 metre-level absolute accuracy is not the driver.
 """

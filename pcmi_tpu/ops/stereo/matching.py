@@ -1,8 +1,8 @@
-"""TPU dense stereo matcher: census+AD cost, box/SGM aggregation, WTA.
+"""Dense stereo matcher: census+AD cost, box/SGM aggregation, WTA.
 
 The XLA-path implementation of the reference's OpenCV SGBM + WLS stage
 (``disparity.py:263-310``): signed disparity search over
-``[-max_disp/2, max_disp/2)`` (SGBM ``minDisparity=-MAX_DISP/2`` parity,
+``[-max_disp/2, max_disp/2)`` (SGBM ``minDisparity=-MAX_DISP/2``,
 ``disparity.py:265-267``), census-hamming + absolute-difference matching
 cost, 15x15 block aggregation (``BLOCK_SIZE_DISP``, ``constants.py:58``),
 4-path semi-global aggregation standing in for SGBM's smoothness term, WTA
@@ -10,10 +10,10 @@ with parabola sub-pixel interpolation, and L/R consistency
 (``disparity.py:229-250``).
 
 Everything is jit-compiled; the cost volume is built by a ``lax.scan`` over
-disparities (static shapes, no data-dependent control flow) and SGM runs as
-``lax.scan`` recurrences along each of 4 directions with (D, span) carries —
-VPU-shaped work. A fused Pallas kernel for the cost+aggregation hot loop
-lives in :mod:`pcmi_tpu.ops.stereo.pallas_kernels`.
+disparities (static shapes, no data-dependent control flow). SGM runs as
+``lax.scan`` recurrences along each of 4 directions with (D, span) carries,
+or on a GPU as the Pallas kernel in
+:mod:`pcmi_tpu.ops.stereo.pallas_kernels` (``StereoConfig.sgm_backend``).
 """
 
 from __future__ import annotations
@@ -30,18 +30,28 @@ from pcmi_tpu.config import StereoConfig
 def _cost_dtype(cfg: StereoConfig):
     """Storage dtype for cost/aggregation volumes (see StereoConfig.cost_dtype)."""
     if cfg.cost_dtype == "auto":
-        return jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+        return jnp.float32
     return jnp.dtype(cfg.cost_dtype)
 
 
 def _scan_unroll() -> int:
     """Unroll factor for the disparity/SGM scans.
 
-    Unrolling amortises per-step overhead on TPU (sequential recurrences are
-    launch-bound); on the CPU test backend it only multiplies compile time.
-    Resolved at trace time from the active backend.
+    On a GPU every scan step is its own set of kernel launches, so
+    unrolling amortises them (H100, d288 pair core at 1152^2: 147 ms at
+    unroll 1, 50 ms at unroll 8); on the CPU test backend unrolling only
+    multiplies compile and run time. Resolved at trace time.
     """
-    return 8 if jax.default_backend() == "tpu" else 1
+    return 8 if jax.default_backend() == "gpu" else 1
+
+
+def _use_sgm_kernel(cfg: StereoConfig) -> bool:
+    """Whether SGM runs as the Pallas (Triton) kernel: ``sgm_backend``
+    "auto" takes it where the default backend is a GPU, "pallas" always
+    (it cannot compile for the CPU, which then raises), "xla" never."""
+    if cfg.sgm_backend == "auto":
+        return jax.default_backend() == "gpu"
+    return cfg.sgm_backend == "pallas"
 
 
 class DisparityResult(NamedTuple):
@@ -97,8 +107,7 @@ def _sliding_sum(padded: jnp.ndarray, k: int, axis: int,
     (``s_2w[i] = s_w[i] + s_w[i+w]``) and combining the binary
     decomposition of ``k`` costs ``floor(log2 k) + popcount(k) - 1``
     (4 for the default block of 9). The matcher applies this per volume
-    slice, so the add count is the box filter's entire cost — measured
-    ~4.6 ms of the D=288 pair core before this (VERDICT r4 item 4)."""
+    slice, so the add count is the box filter's entire cost."""
     sums = {1: padded}
     w = 1
     while 2 * w <= k:
@@ -146,9 +155,7 @@ def shift_rows(img: jnp.ndarray, shifts: jnp.ndarray, pad: int, fill,
     ``shifts`` is int32, one of:
 
     * (H,) — one contiguous slice per row, no gathers;
-    * (H, W) with ``chunk == 1`` — a per-pixel horizontal gather.
-      MEASURED SLOW on TPU (~7 ms/megapixel plane: element gathers along
-      the lane axis); prefer the chunked form;
+    * (H, W) with ``chunk == 1`` — a per-pixel horizontal gather;
     * (H, W // chunk) with ``chunk > 1`` — one shift per ``chunk``-px
       span: H*W/chunk contiguous ``chunk``-element slices, which XLA
       lowers to a gather with ``chunk``-wide slices (lane-friendly).
@@ -245,8 +252,7 @@ def build_cost_volume(
         ad = jnp.minimum(jnp.abs(left - r), 0.5) / 0.5
         cost = (1.0 - cfg.ad_weight) * census_cost + cfg.ad_weight * ad
         cost = jnp.where(valid_l & v, cost, 1.0)
-        # aggregate in f32, store in the volume dtype (bf16 on TPU): the
-        # volume write/read traffic dominates the matcher
+        # aggregate in f32, store in the volume dtype (cost_dtype)
         return None, _box_edge(cost, cfg.block_size).astype(_cost_dtype(cfg))
 
     # disp_stride > 1 searches every s-th disparity (volume slice i holds
@@ -292,16 +298,13 @@ def sgm_aggregate(vol: jnp.ndarray, cfg: StereoConfig,
     vertical-support cross-checker, whose independence from horizontal
     fattening is the whole point).
 
-    Dispatches to the Pallas kernel path on TPU (``cfg.sgm_backend``):
-    the scan formulation below is the portable/parity reference."""
-    use_pallas = cfg.sgm_backend == "pallas" or (
-        cfg.sgm_backend == "auto" and jax.default_backend() == "tpu"
-    )
-    if use_pallas:
-        from pcmi_tpu.ops.stereo.pallas_kernels import sgm_aggregate_pallas_sub
+    Dispatches to the GPU kernel per ``cfg.sgm_backend``
+    (:func:`_use_sgm_kernel`); the scan formulation below is the
+    reference it is exact against."""
+    if _use_sgm_kernel(cfg):
+        from pcmi_tpu.ops.stereo.pallas_kernels import sgm_aggregate_pallas
 
-        return sgm_aggregate_pallas_sub(vol, cfg.sgm_p1, cfg.sgm_p2,
-                                        dirs=dirs)
+        return sgm_aggregate_pallas(vol, cfg.sgm_p1, cfg.sgm_p2, dirs=dirs)
     p1, p2 = cfg.sgm_p1, cfg.sgm_p2
     dt = vol.dtype
     vol = vol.astype(jnp.float32)  # scan path computes in f32 regardless
@@ -325,15 +328,13 @@ def sgm_aggregate(vol: jnp.ndarray, cfg: StereoConfig,
 
 
 def wta_disparity(vol: jnp.ndarray, d_min: int, with_margin: bool = False,
-                  subpixel: bool = True, stride: int = 1,
-                  backend: str = "auto"):
+                  subpixel: bool = True, stride: int = 1):
     """Argmin over D + parabola sub-pixel (matches numpy_ref semantics).
 
-    Gather-free: ``take_along_axis`` over the D axis lowers to scatter/gather
-    (slow on TPU); the best/prev/next costs are instead extracted with
-    masked reductions — three streaming passes over the volume, VPU-shaped.
+    The best/prev/next costs are extracted with masked reductions over D,
+    which XLA fuses with the argmin into sibling reductions.
 
-    ``with_margin`` adds a fourth pass computing the uniqueness margin
+    ``with_margin`` adds a fourth reduction computing the uniqueness margin
     (second-best cost at |d − best_d| > 1, minus best) and returns a
     3-tuple ``(disp, best, margin)``. ``subpixel=False`` skips the parabola
     (two of the volume passes) and returns integer disparities — enough for
@@ -344,16 +345,6 @@ def wta_disparity(vol: jnp.ndarray, d_min: int, with_margin: bool = False,
     the parabola interpolates at that spacing (offset scaled by stride).
     """
     D = vol.shape[0]
-    if backend == "auto" and jax.default_backend() == "tpu" and D >= 4:
-        # fused single-pass kernel: the XLA form below costs four full
-        # volume passes (argmin, neighbour takes, away-margin reduce) —
-        # the largest non-SGM stage at the flagship canvas. Parity is
-        # exact (same tie-breaking, boundary gating and margin set).
-        from pcmi_tpu.ops.stereo.pallas_kernels import wta_fused_pallas
-
-        disp, best, margin = wta_fused_pallas(
-            vol, d_min, stride=stride, subpixel=subpixel)
-        return (disp, best, margin) if with_margin else (disp, best)
     best_d = jnp.argmin(vol, axis=0).astype(jnp.int32)  # (H, W)
     ds = jax.lax.broadcasted_iota(jnp.int32, vol.shape, 0)
     big = jnp.asarray(1e9, vol.dtype)
@@ -437,71 +428,13 @@ def derive_right_volume(vol: jnp.ndarray, d_min: int,
     any aggregated cost so padding never wins the right-view WTA. SGM does
     not commute with the shift exactly; shifting the aggregated volume is
     the standard single-volume approximation (libSGM / OpenCV CUDA SGM)."""
-    if jax.default_backend() == "tpu" and vol.shape[0] >= 96:
-        # pure data movement: the double-buffered DMA-pipe kernel beats
-        # the scan form on deep volumes (the MAX_DISP=288 regime); at
-        # shallow D the XLA scan is already bandwidth-adequate
-        from pcmi_tpu.ops.stereo.pallas_kernels import derive_right_pallas
-
-        return derive_right_pallas(vol, d_min, fill=fill, stride=stride)
     D, h, w = vol.shape
-    pad = max(abs(d_min), abs(d_min + (D - 1) * stride)) + 1
-    volp = jnp.pad(vol, ((0, 0), (0, 0), (pad, pad)), constant_values=fill)
     ds = jnp.arange(D, dtype=jnp.int32) * stride + d_min
-
-    def step(_, args):
-        plane, d = args
-        return None, jax.lax.dynamic_slice_in_dim(plane, pad + d, w, axis=1)
-
-    _, out = jax.lax.scan(step, None, (volp, ds), unroll=_scan_unroll())
-    return out
-
-
-def diag_right_disparity_wdh(s_wdh: jnp.ndarray, d_min: int, d_count: int,
-                             h: int, w: int, stride: int = 1) -> jnp.ndarray:
-    """Right-view integer disparity as a diagonal argmin over the LEFT
-    combined SGM aggregate in its (W, Dp, H) kernel layout:
-
-        disp_r[y, x] = d_min + stride * argmin_i S[x + d_i, i, y]
-
-    (``d_i = d_min + i*stride``; candidates with ``x + d_i`` outside the
-    real image width are excluded, all-excluded pixels take i=0 like the
-    fill-padded ``right_sgm="derived"`` WTA). This is how OpenCV SGBM
-    computes its second view (``disp2`` from the single aggregated cost
-    S), so the right view costs ONE read of S instead of the derive +
-    2-path SGM + WTA chain. Gather-free: a scan over the d slices with
-    dynamic plane slices, ties -> lowest index (argmin parity).
-
-    ``s_wdh`` may carry padded extents (Wp >= w, Dp >= d_count, Hp >= h)
-    straight from ``sgm4_wta_fused_pallas(..., with_aggregate=True)``;
-    only the real region is read.
-    """
-    wp, dp, hp = s_wdh.shape
-    pad_lo = max(0, -d_min)
-    pad_hi = max(0, d_min + (d_count - 1) * stride) + 1
-    xs = jax.lax.broadcasted_iota(jnp.int32, (w, hp), 0)
-    big = jnp.float32(1e9)
-
-    def step(carry, i):
-        best, besti = carry
-        d = d_min + i * stride
-        plane = jax.lax.dynamic_slice(s_wdh, (0, i, 0), (wp, 1, hp))[:, 0, :]
-        planep = jnp.pad(plane.astype(jnp.float32), ((pad_lo, pad_hi), (0, 0)),
-                         constant_values=big)
-        shifted = jax.lax.dynamic_slice(planep, (pad_lo + d, 0), (w, hp))
-        ok = (xs + d >= 0) & (xs + d < w)
-        cost = jnp.where(ok, shifted, big)
-        upd = cost < best
-        return (jnp.where(upd, cost, best),
-                jnp.where(upd, i, besti)), None
-
-    init = (jnp.full((w, hp), big, jnp.float32),
-            jnp.zeros((w, hp), jnp.int32))
-    (best, besti), _ = jax.lax.scan(
-        step, init, jnp.arange(d_count, dtype=jnp.int32),
-        unroll=_scan_unroll())
-    disp = d_min + stride * besti.astype(jnp.float32)
-    return disp[:, :h].T
+    xs = jnp.arange(w, dtype=jnp.int32)[None, :] + ds[:, None]  # (D, W)
+    idx = jnp.broadcast_to(jnp.clip(xs, 0, w - 1)[:, None, :], vol.shape)
+    out = jnp.take_along_axis(vol, idx, axis=2)
+    return jnp.where(((xs >= 0) & (xs < w))[:, None, :], out,
+                     jnp.asarray(fill, vol.dtype))
 
 
 @partial(jax.jit, static_argnames=("cfg", "aggregation", "row_shift_pad",
@@ -538,67 +471,14 @@ def compute_disparity(
                               row_shift=row_shift,
                               row_shift_pad=row_shift_pad,
                               row_shift_chunk=row_shift_chunk)
-    use_pallas = cfg.sgm_backend == "pallas" or (
-        cfg.sgm_backend == "auto" and jax.default_backend() == "tpu")
-    disp_r = None
-    left_fused = None
     if aggregation == "sgm":
-        if use_pallas and cfg.right_sgm not in ("derived", "diagonal"):
-            # fused 4-path SGM + WTA: the combined aggregate is never
-            # materialized (see pallas_kernels.sgm4_wta_fused_pallas);
-            # skipped for right_sgm="derived", whose right view needs agg_l
-            from pcmi_tpu.ops.stereo.pallas_kernels import (
-                sgm4_wta_fused_pallas,
-            )
-
-            left_fused = sgm4_wta_fused_pallas(
-                vol_l, cfg.sgm_p1, cfg.sgm_p2, cfg.min_disparity,
-                stride=stride)
-            agg_l = None
-        elif use_pallas and cfg.right_sgm == "diagonal":
-            # fused left SGM+WTA that ALSO emits the combined aggregate S
-            # (one extra volume write); the right view is then a single
-            # diagonal-argmin read of S — the OpenCV-SGBM disp2 recipe —
-            # replacing the derive + 2-path SGM + WTA chain (~14 volume
-            # passes) with ~3
-            from pcmi_tpu.ops.stereo.pallas_kernels import (
-                sgm4_wta_fused_pallas,
-            )
-
-            *left_fused, s_wdh = sgm4_wta_fused_pallas(
-                vol_l, cfg.sgm_p1, cfg.sgm_p2, cfg.min_disparity,
-                stride=stride, with_aggregate=True)
-            d_n, h_n, w_n = vol_l.shape
-            disp_r = diag_right_disparity_wdh(
-                s_wdh, cfg.min_disparity, d_n, h_n, w_n, stride=stride)
-            agg_l = None
-        else:
-            agg_l = sgm_aggregate(vol_l, cfg)
-        if disp_r is not None:
-            agg_r = None
-        elif cfg.right_sgm in ("derived", "diagonal"):
+        agg_l = sgm_aggregate(vol_l, cfg)
+        if cfg.right_sgm in ("derived", "diagonal"):
             # single-volume L/R: shift the aggregated left volume into the
             # right frame instead of paying a second full SGM (see
-            # StereoConfig.right_sgm). "diagonal" lands here only off the
-            # Pallas path (CPU/scan backend) — fill-padded derive + integer
-            # WTA computes the identical argmin (see
-            # diag_right_disparity_wdh).
+            # StereoConfig.right_sgm)
             agg_r = derive_right_volume(agg_l, cfg.min_disparity, fill=1e4,
                                         stride=stride)
-        elif cfg.right_sgm == "horizontal" and not cfg.right_subpixel \
-                and use_pallas:
-            # fully fused right view: derive -> 2-path SGM -> streaming
-            # sum+argmin, no materialized right aggregate, no WTA pass
-            # (bit-parity with the unfused chain; see
-            # pallas_kernels.right_disparity_fused_pallas)
-            from pcmi_tpu.ops.stereo.pallas_kernels import (
-                right_disparity_fused_pallas,
-            )
-
-            disp_r = right_disparity_fused_pallas(
-                vol_l, cfg.sgm_p1, cfg.sgm_p2, cfg.min_disparity,
-                stride=stride)
-            agg_r = None
         else:
             agg_r = sgm_aggregate(
                 derive_right_volume(vol_l, cfg.min_disparity, stride=stride),
@@ -606,18 +486,12 @@ def compute_disparity(
     else:
         agg_l = vol_l
         agg_r = derive_right_volume(vol_l, cfg.min_disparity, stride=stride)
-    if left_fused is not None:
-        disp_l, cost_l, margin = left_fused
-    else:
-        disp_l, cost_l, margin = wta_disparity(agg_l, cfg.min_disparity,
-                                               with_margin=True,
-                                               stride=stride)
-    if disp_r is None:
-        # diagonal mode is integer-WTA by construction; keep the scan
-        # fallback identical so backends agree
-        sub_r = cfg.right_subpixel and cfg.right_sgm != "diagonal"
-        disp_r, _ = wta_disparity(agg_r, cfg.min_disparity,
-                                  subpixel=sub_r, stride=stride)
+    disp_l, cost_l, margin = wta_disparity(agg_l, cfg.min_disparity,
+                                           with_margin=True, stride=stride)
+    # "diagonal" is the integer-WTA form of "derived" (OpenCV SGBM's disp2)
+    sub_r = cfg.right_subpixel and cfg.right_sgm != "diagonal"
+    disp_r, _ = wta_disparity(agg_r, cfg.min_disparity, subpixel=sub_r,
+                              stride=stride)
 
     ok = lr_consistency(disp_l, disp_r, cfg.lr_threshold_eff,
                         d_min=cfg.min_disparity,

@@ -2,11 +2,11 @@
 
 This is the parity baseline required by BASELINE.json config 1 ("Single WV3
 sample pair -> height map ... CPU NumPy parity") and the denominator for the
->=20x throughput target. Semantics match the TPU implementation in
+>=20x throughput target. Semantics match the JAX implementation in
 :mod:`pcmi_tpu.ops.stereo.matching` exactly (same census + AD cost, same box
 aggregation, same WTA + parabola sub-pixel, same L/R consistency rule), and
 ``aggregation="sgm"`` adds the same 4-path semi-global regularisation the
-TPU path runs by default — the bench times the CPU path in that mode so the
+JAX path runs by default — the bench times the CPU path in that mode so the
 throughput ratio compares equal work.
 
 The matching envelope mirrors the reference's SGBM setup: signed search
@@ -127,21 +127,13 @@ def disparity_wta_np(
     """Winner-takes-all disparity with parabola sub-pixel refinement.
 
     ``aggregation="sgm"`` adds the 4-path semi-global pass after box
-    aggregation (matching the TPU path's default work). Returns
+    aggregation (matching the JAX path's default work). Returns
     ``(disparity, best_cost)``; disparity is float px in
     ``[-max_disp/2, max_disp/2)``.
     """
-    h, w = left.shape
     d_min = -max_disp // 2
     census_l = census_transform_np(left, census_window)
     census_r = census_transform_np(right, census_window)
-
-    best = np.full((h, w), np.inf, np.float32)
-    best_d = np.zeros((h, w), np.int32)
-    prev_at_best = np.zeros((h, w), np.float32)
-    next_at_best = np.zeros((h, w), np.float32)
-    prev_cost = None
-    pending = None  # (d_index, cost) waiting for its "next" slice
 
     costs = []
     for di in range(max_disp):
@@ -156,32 +148,54 @@ def disparity_wta_np(
     vol = np.stack(costs)  # (D, H, W)
     if aggregation == "sgm":
         vol = sgm_aggregate_np(vol)
+    return wta_np(vol, d_min)
+
+
+def wta_np(vol: np.ndarray, d_min: int, stride: int = 1,
+           subpixel: bool = True, with_margin: bool = False):
+    """WTA over the D axis of a (D, H, W) volume with parabola sub-pixel.
+
+    Slice i holds disparity ``d_min + i * stride``; the parabola offset is
+    scaled by ``stride``. Returns ``(disparity, best_cost)``, plus the
+    uniqueness margin (best cost more than one slice away, minus best)
+    when ``with_margin``."""
+    D, h, w = vol.shape
     best_d = vol.argmin(0)
     yy, xx = np.mgrid[:h, :w]
     best = vol[best_d, yy, xx]
-    prev_at_best = vol[np.clip(best_d - 1, 0, max_disp - 1), yy, xx]
-    next_at_best = vol[np.clip(best_d + 1, 0, max_disp - 1), yy, xx]
+    if subpixel:
+        prev_at_best = vol[np.clip(best_d - 1, 0, D - 1), yy, xx]
+        next_at_best = vol[np.clip(best_d + 1, 0, D - 1), yy, xx]
+        denom = prev_at_best - 2 * best + next_at_best
+        offset = np.where(
+            (denom > 1e-9) & (best_d > 0) & (best_d < D - 1),
+            0.5 * (prev_at_best - next_at_best) / np.maximum(denom, 1e-9),
+            0.0,
+        )
+        disp = d_min + stride * (best_d + np.clip(offset, -1, 1))
+    else:
+        disp = d_min + stride * best_d
+    disp = disp.astype(np.float32)
+    if not with_margin:
+        return disp, best
+    ds = np.arange(D)[:, None, None]
+    away = np.abs(ds - best_d[None]) > 1
+    second = np.where(away, vol, np.float32(1e9)).min(0)
+    return disp, best, second - best
 
-    denom = prev_at_best - 2 * best + next_at_best
-    offset = np.where(
-        (denom > 1e-9) & (best_d > 0) & (best_d < max_disp - 1),
-        0.5 * (prev_at_best - next_at_best) / np.maximum(denom, 1e-9),
-        0.0,
-    )
-    disp = (d_min + best_d + np.clip(offset, -1, 1)).astype(np.float32)
-    return disp, best
 
+def sgm_aggregate_np(vol: np.ndarray, p1: float = 0.03, p2: float = 0.48,
+                     dirs: str = "4"):
+    """Semi-global aggregation (Hirschmüller 2008), NumPy reference.
 
-def sgm_aggregate_np(vol: np.ndarray, p1: float = 0.03, p2: float = 0.48):
-    """4-path semi-global aggregation (Hirschmüller 2008), NumPy reference.
-
-    Same recurrence as :func:`pcmi_tpu.ops.stereo.matching._sgm_scan`
-    (L/R/T/B paths, averaged). Included so the CPU baseline timed by
-    ``bench.py`` performs the SAME regularisation work as the TPU path —
-    a like-for-like throughput denominator."""
-    D, h, w = vol.shape
+    Same recurrence as :func:`pcmi_tpu.ops.stereo.matching._sgm_scan`,
+    averaged over the paths ``dirs`` names: "4" (L/R/T/B), "h" (L/R) or
+    "v" (T/B)."""
+    paths = {"4": ((2, False), (2, True), (1, False), (1, True)),
+             "h": ((2, False), (2, True)),
+             "v": ((1, False), (1, True))}[dirs]
     out = np.zeros_like(vol)
-    for axis, reverse in ((2, False), (2, True), (1, False), (1, True)):
+    for axis, reverse in paths:
         span = vol.shape[axis]
         acc = np.zeros_like(vol)
         prev = None
@@ -204,7 +218,7 @@ def sgm_aggregate_np(vol: np.ndarray, p1: float = 0.03, p2: float = 0.48):
                 acc[:, i, :] = cur
             prev = cur
         out += acc
-    return (out / 4.0).astype(np.float32)
+    return (out / len(paths)).astype(np.float32)
 
 
 def lr_consistency_np(disp_l: np.ndarray, disp_r: np.ndarray, thresh: float = 1.5):

@@ -1,4 +1,4 @@
-"""Batched image warps (the TPU replacement for GDAL/ASP/OpenCV resampling).
+"""Batched image warps (the in-framework replacement for GDAL/ASP/OpenCV resampling).
 
 The reference warps through three external engines: ASP's rectification
 resampler (``processing.py:61-83``), ``cv2.warpPerspective`` in stitching
@@ -103,5 +103,4 @@ def warp_points_affine(matrix: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     m = jnp.asarray(matrix, jnp.float32)
     ones = jnp.ones((xy.shape[0], 1), jnp.float32)
     homo = jnp.concatenate([xy.astype(jnp.float32), ones], axis=1)
-    out = homo @ m[:2].T
-    return out
+    return jnp.matmul(homo, m[:2].T, precision=jax.lax.Precision.HIGHEST)

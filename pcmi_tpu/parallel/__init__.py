@@ -10,7 +10,7 @@ from pcmi_tpu.parallel.mesh import (
 from pcmi_tpu.parallel.fusion_sharded import sharded_dsm_update
 from pcmi_tpu.parallel.halo import halo_exchange_rows, sharded_rows_map
 from pcmi_tpu.parallel.multihost import (
-    DCN_AXIS,
+    HOST_AXIS,
     initialize as initialize_multihost,
     make_multihost_mesh,
 )
@@ -23,7 +23,7 @@ from pcmi_tpu.parallel.stereo_sharded import (
 __all__ = [
     "DATA_AXIS",
     "TILE_AXIS",
-    "DCN_AXIS",
+    "HOST_AXIS",
     "initialize_multihost",
     "make_multihost_mesh",
     "make_mesh",

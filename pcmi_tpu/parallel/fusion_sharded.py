@@ -2,13 +2,13 @@
 
 The fusion half of the flagship (the advertised multi-day K-means
 reconstruction the reference only gestures at, ``README.md:17``) scales
-out the TPU way: the streaming accumulator's running sums
+out additively: the streaming accumulator's running sums
 (:class:`pcmi_tpu.pipelines.streaming.StreamingDSM`) are *additive*, so
 band tiles fan out over every mesh axis, each device scans its local
 blocks through the tile-local robust gate, and ONE ``psum`` over the mesh
 merges the packed (weight, value, value²) grids. No scatter crosses a
 device boundary — the collective moves exactly 3·ny·nx floats per device
-regardless of point count, riding ICI.
+regardless of point count.
 
 Semantics are *identical* to the sequential band loop in
 :class:`pcmi_tpu.pipelines.streaming.StreamingAOIPipeline`: the robust

@@ -1,6 +1,6 @@
 """Halo exchange over row-band sharded images (`lax.ppermute` collectives).
 
-The TPU equivalent of the reference's margin discipline: the reference pads
+The sharded equivalent of the reference's margin discipline: the reference pads
 ``max_disp`` columns so SGBM has search room (``add_margin``,
 ``processing.py:118-126``) and dilates invalid borders by 24 px
 (``processing.py:35-41``). When a rectified canvas is sharded into row bands

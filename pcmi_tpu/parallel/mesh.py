@@ -8,8 +8,9 @@ first-class ``jax.sharding.Mesh`` with two axes:
 * ``tile`` — spatial row-bands of one rectified canvas, coupled through
   halo exchange (:mod:`pcmi_tpu.parallel.halo`).
 
-Within a TPU slice both axes ride ICI; across hosts the ``data`` axis maps
-naturally onto DCN (pairs never communicate).
+The mesh follows the algorithm: ``tile`` carries the halo ``ppermute``
+traffic between neighbouring bands, ``data`` carries none (pairs never
+communicate), so ``data`` is the axis to stretch across hosts.
 """
 
 from __future__ import annotations

@@ -1,19 +1,19 @@
-"""Multi-host bring-up: jax.distributed + DCN-aware mesh construction.
+"""Multi-host bring-up: jax.distributed + a host-aware mesh.
 
 The reference has no distributed runtime at all (SURVEY §2.8). In this
 framework the scale-out story spans three tiers:
 
-1. single chip — everything under jit;
-2. one slice — (data × tile) mesh over ICI (:mod:`pcmi_tpu.parallel.mesh`);
-3. multi-host / multi-slice — the embarrassingly parallel axes (stereo
-   pairs, acquisition dates, AOIs of a sweep) ride DCN, while the
-   tile/halo axis stays inside each slice's ICI domain.
+1. one device — everything under jit;
+2. one host — (data × tile) mesh over its devices
+   (:mod:`pcmi_tpu.parallel.mesh`);
+3. several hosts — the embarrassingly parallel axes (stereo pairs,
+   acquisition dates, AOIs of a sweep) span hosts, while the tile/halo
+   axis, the only one that exchanges data every step, stays inside a host.
 
-``initialize()`` wraps ``jax.distributed.initialize`` with environment
-detection; ``make_multihost_mesh()`` builds a (dcn, data, tile) mesh whose
-leading axis spans processes, using
-``jax.experimental.mesh_utils.create_hybrid_device_mesh`` so collectives
-never cross DCN except on the axis that needs no bandwidth.
+``initialize()`` wraps ``jax.distributed.initialize``;
+``make_multihost_mesh()`` builds a (host, data, tile) mesh whose leading
+axis spans processes, so collectives never cross hosts except on the axis
+that needs no bandwidth.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import jax
 import numpy as np
 from jax.sharding import Mesh
 
-DCN_AXIS = "dcn"
+HOST_AXIS = "host"
 
 
 def initialize(
@@ -36,13 +36,11 @@ def initialize(
     """Initialise jax.distributed when running multi-process.
 
     Safe to call unconditionally: single-process runs (no coordinator in
-    the environment and no arguments) return False without touching
-    distributed state. TPU pod environments auto-detect everything.
+    the arguments or in ``JAX_COORDINATOR_ADDRESS``) return False without
+    touching distributed state.
     """
     env_coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
-    on_pod = bool(os.environ.get("TPU_WORKER_HOSTNAMES")) and \
-        len(os.environ.get("TPU_WORKER_HOSTNAMES", "").split(",")) > 1
-    if coordinator_address is None and env_coord is None and not on_pod:
+    if coordinator_address is None and env_coord is None:
         return False
     kwargs = {}
     if coordinator_address or env_coord:
@@ -56,11 +54,11 @@ def initialize(
 
 
 def make_multihost_mesh(data: int = 1, tile: Optional[int] = None) -> Mesh:
-    """(dcn, data, tile) mesh: processes on the leading axis, ICI inside.
+    """(host, data, tile) mesh: processes on the leading axis.
 
-    Pairs/dates/AOIs shard over ``dcn`` × ``data`` (no communication
-    between shards), row-band halo exchange over ``tile`` stays on ICI.
-    Falls back to a single-process mesh with a unit dcn axis.
+    Pairs/dates/AOIs shard over ``host`` × ``data`` (no communication
+    between shards), row-band halo exchange over ``tile`` stays inside a
+    host. Falls back to a single-process mesh with a unit host axis.
     """
     n_proc = jax.process_count()
     local = jax.local_device_count()
@@ -73,20 +71,19 @@ def make_multihost_mesh(data: int = 1, tile: Optional[int] = None) -> Mesh:
 
     if n_proc == 1:
         grid = np.array(jax.devices()).reshape(1, data, tile)
-        return Mesh(grid, (DCN_AXIS, "data", "tile"))
+        return Mesh(grid, (HOST_AXIS, "data", "tile"))
 
     try:
         from jax.experimental import mesh_utils
 
         grid = mesh_utils.create_hybrid_device_mesh(
             mesh_shape=(data, tile),
-            dcn_mesh_shape=(n_proc, 1),
+            dcn_mesh_shape=(n_proc, 1),  # the leading (host) axis
             devices=jax.devices(),
         )
     except ValueError:
-        # Devices without distinct slice indices (multi-process CPU, or a
-        # single slice spanning hosts): group by process so the leading
-        # axis still aligns with DCN boundaries.
+        # Devices without distinct slice indices (multi-process CPU or
+        # GPU): group by process so the leading axis aligns with hosts.
         devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
         grid = np.array(devs)
-    return Mesh(grid.reshape(n_proc, data, tile), (DCN_AXIS, "data", "tile"))
+    return Mesh(grid.reshape(n_proc, data, tile), (HOST_AXIS, "data", "tile"))

@@ -78,7 +78,10 @@ def sharded_disparity(
         return jax.vmap(single)(left, right, vl, vr)
 
     spec = P(DATA_AXIS, TILE_AXIS, None)
-    fn = jax.shard_map(per_shard, mesh=mesh, in_specs=spec, out_specs=spec)
+    # check_vma=False: the matcher's Pallas kernel declares its outputs
+    # without mesh-varying types; every output is per-band (varying) anyway
+    fn = jax.shard_map(per_shard, mesh=mesh, in_specs=spec, out_specs=spec,
+                       check_vma=False)
     return jax.jit(fn)
 
 

@@ -7,8 +7,8 @@ runs per slice, slice detections are shifted back to scene coordinates and
 fused with NMS, and results become a napari shapes layer with
 ``{class}: {confidence:.2f}`` labels (``plugin.py:32-98``).
 
-TPU-first: the slicer produces ONE static ``(N, tile, tile)`` batch (the
-whole point of SAHI is batching — on TPU that is a single vmapped forward
+Accelerator-first: the slicer produces ONE static ``(N, tile, tile)`` batch (the
+whole point of SAHI is batching — on an accelerator that is a single vmapped forward
 pass, not a Python loop over temp PNGs); NMS is the standard O(K²)
 vectorised suppression matrix under ``lax``; the detector is an injected
 callable ``(N, tile, tile) -> (N, K, 6)`` of ``(y0, x0, y1, x1, score,
@@ -67,7 +67,7 @@ def nms(boxes: jnp.ndarray, scores: jnp.ndarray, iou_thresh: float = 0.5,
     """Vectorised NMS: returns indices of kept boxes (padded with -1).
 
     Boxes are (K, 4) ``(y0, x0, y1, x1)``; the suppression matrix is O(K²)
-    elementwise — ideal VPU shape for K ≲ few thousand. When ``classes`` is
+    elementwise — ideal vector shape for K ≲ few thousand. When ``classes`` is
     given, suppression is class-aware (overlapping boxes of different
     classes both survive, the standard multi-class convention).
     """

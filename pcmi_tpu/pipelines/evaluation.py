@@ -43,6 +43,28 @@ def truth_on_grid(scene: SyntheticScene, xyz) -> tuple[np.ndarray, np.ndarray]:
     return t, inb
 
 
+def grid_truth(scene: SyntheticScene, origin: tuple[float, float],
+               cell: float, shape: tuple[int, int]
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """True terrain height at the cell centres of a DSM grid.
+
+    Returns ``(truth, in_bounds)`` of ``shape``: the terrain sample under
+    each cell centre, and whether that centre lies on the terrain.
+    """
+    ny, nx = shape
+    terr = np.asarray(scene.terrain)
+    gx = (origin[0] + (np.arange(nx) + 0.5) * cell
+          - scene.ground_origin[0]) / scene.ground_gsd
+    gy = (origin[1] + (np.arange(ny) + 0.5) * cell
+          - scene.ground_origin[1]) / scene.ground_gsd
+    gxm, gym = np.meshgrid(gx, gy)
+    inb = ((gxm >= 0) & (gxm < terr.shape[1] - 1)
+           & (gym >= 0) & (gym < terr.shape[0] - 1))
+    truth = terr[np.clip(gym.astype(int), 0, terr.shape[0] - 1),
+                 np.clip(gxm.astype(int), 0, terr.shape[1] - 1)]
+    return truth, inb
+
+
 def pair_observability(scene: SyntheticScene, pairs, cell: float,
                        grid_shape: tuple[int, int],
                        origin: tuple[float, float] | None = None,
@@ -86,14 +108,15 @@ def pair_observability(scene: SyntheticScene, pairs, cell: float,
 
 def evaluate_pair_accuracy(scene: SyntheticScene,
                            cfg: PipelineConfig,
-                           view_idx=(0, 1)) -> dict:
+                           view_idx=(0, 1), stereo_cfg=None) -> dict:
     """Run the flagship pair pipeline on one scene and score it.
 
     Returns height RMSE / bias / completeness vs the scene's exact terrain
     (the ≤1 m RMSE north-star gate, BASELINE.json).  ``completeness`` is
     valid pixels over the observable footprint (both rectified views carry
     data) — the denominator the reference's validity logic implies
-    (``plugin.py:150-152``).
+    (``plugin.py:150-152``). ``stereo_cfg`` overrides the search envelope
+    sized for this pair alone, e.g. with the one a whole AOI shares.
     """
     i, j = view_idx
     pipe = HeightMapPipeline(cfg)
@@ -101,7 +124,8 @@ def evaluate_pair_accuracy(scene: SyntheticScene,
         scene.rpcs[i], scene.rpcs[j], *aoi_lonlat_ranges(scene),
         scene.images[i].shape, scene.images[j].shape,
     )
-    product = pipe.process_pair(scene.images[i], scene.images[j], geom)
+    product = pipe.process_pair(scene.images[i], scene.images[j], geom,
+                                stereo_cfg)
     valid = np.asarray(product.valid)
     truth, inb = truth_on_grid(scene, product.xyz)
     m = valid & inb
@@ -154,19 +178,8 @@ def evaluate_fused_dsm(scene: SyntheticScene, cfg: PipelineConfig, views,
         points_per_pair=points_per_pair, grid_cell=grid_cell,
     )
     dsm = np.asarray(fused.dsm)
-    ny, nx = dsm.shape
-    x0, y0 = fused.grid_origin
     cell = fused.grid_cell
-    terr = np.asarray(scene.terrain)
-    gx = (x0 + (np.arange(nx) + 0.5) * cell
-          - scene.ground_origin[0]) / scene.ground_gsd
-    gy = (y0 + (np.arange(ny) + 0.5) * cell
-          - scene.ground_origin[1]) / scene.ground_gsd
-    gxm, gym = np.meshgrid(gx, gy)
-    inb = (gxm >= 0) & (gxm < terr.shape[1] - 1) \
-        & (gym >= 0) & (gym < terr.shape[0] - 1)
-    tt = terr[np.clip(gym.astype(int), 0, terr.shape[0] - 1),
-              np.clip(gxm.astype(int), 0, terr.shape[1] - 1)]
+    tt, inb = grid_truth(scene, fused.grid_origin, cell, dsm.shape)
     filled = np.isfinite(dsm) & inb
     comp = float(filled.sum() / max(inb.sum(), 1))
     err = dsm[filled] - tt[filled]

@@ -1,6 +1,6 @@
 """Flagship pipeline: stereo pair → disparity → height map → 3D points.
 
-The TPU-native rebuild of the reference's hot path
+The in-memory JAX rebuild of the reference's hot path
 (``HeightMapExtractor.run``, reference ``plugin.py:36-243`` +
 ``disparity.py:21-226``): where the reference buses every stage through
 ``data/TEMP`` files and external binaries (GDAL crop → ASP rectify → OpenCV
@@ -88,11 +88,10 @@ def photoconsistency(left: jnp.ndarray, right: jnp.ndarray,
     """|right(y, x - d) - left(y, x)| on normalised images — the reference's
     warp-difference map (``processing.py:94-115``).
 
-    Gather-free on TPU: the fractional per-pixel shift is expressed as a
-    scan over the static disparity range with triangle (linear-interp)
-    weights ``max(0, 1 - |d - s|)`` — each step is one contiguous dynamic
-    slice of the padded right image, so the whole map is D streaming VPU
-    passes instead of ~1M random gathers.
+    Gather-free: the fractional per-pixel shift is expressed as a scan
+    over the static disparity range with triangle (linear-interp) weights
+    ``max(0, 1 - |d - s|)`` — each step is one contiguous dynamic slice of
+    the padded right image.
 
     ``stride > 1`` scans every stride-th shift with the triangle widened to
     that spacing — linear interpolation of the right view on a stride-px
@@ -235,10 +234,8 @@ def pair_core(
     if cfg.photo_adapt_factor > 0:
         from pcmi_tpu.ops.normalize import masked_median_grid
         # one-pass FULL-RES grid quantile: the residual range is known
-        # ([0, ~2] on normalised imagery); a full-canvas SORT (~7 ms), a
-        # bisection loop (~0.4 ms/step) and even a [::2] subsample
-        # (~5 ms lane relayout!) all lose to one fused
-        # compare-and-count pass over every pixel (~0.05 ms)
+        # ([0, ~2] on normalised imagery), so one fused compare-and-count
+        # pass over every pixel replaces a full-canvas sort
         floor = masked_median_grid(photo, res.valid & v1, 0.0, 2.0)
         photo_thresh = jnp.maximum(photo_thresh,
                                    cfg.photo_adapt_factor * floor)
@@ -320,8 +317,8 @@ def _finalise_product(res, v1, mask1, mask2, n1, n2, photo, tri_M, tri_b,
         plane = fit_plane(xyz, valid.astype(jnp.float32))
         rel = plane_relative_height(xyz, plane)
         # two-stage grid quantiles (64² effective bins) instead of the
-        # full-canvas sort _masked_quantile pays (~1 ms/Mpix on-chip);
-        # the display clip tolerates far coarser resolution than that
+        # full-canvas sort _masked_quantile pays; the display clip
+        # tolerates far coarser resolution than that
         from pcmi_tpu.ops.normalize import masked_quantile_grid
         rlo = jnp.min(jnp.where(valid, rel, jnp.inf))
         rhi = jnp.max(jnp.where(valid, rel, -jnp.inf))

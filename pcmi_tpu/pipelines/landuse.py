@@ -9,10 +9,10 @@ per-superpixel mean aggregation (a Python loop at ``:210-215``),
 StandardScaler + KMeans k=5 on the object features (``:224-228``), and the
 label-map reconstruction + boundary/PCA visualisations (``:235-253``).
 
-TPU-first rebuild:
+Accelerator-first rebuild:
 
 * SLIC **is** K-means over (colour, compact·x, compact·y) features — the
-  grid-seeded Lloyd iterations run as chunked distance matmuls (MXU)
+  grid-seeded Lloyd iterations run as chunked distance matmuls
   instead of skimage's Cython neighbourhood walk.
 * Per-superpixel aggregation is one ``segment_sum`` per feature block, not
   a Python loop over 1500 segments.

@@ -11,7 +11,7 @@ the dark channel ``:164-174``, transmission ``1 - 0.95·dark`` clipped to
 synthetic haze+noise degradation generator used by its simulation tests
 (``add_degradation`` ``:74-104``).
 
-TPU-first: NLM is the textbook shifted-SSD formulation — every search
+Accelerator-first: NLM is the textbook shifted-SSD formulation — every search
 offset contributes ``exp(-boxfilter((I - shift(I))²)/h²)·shift(I)``, all
 static shifts and box filters, no gathers. Images are float32 [0, 1],
 ``(H, W)`` or ``(H, W, 3)``.

@@ -8,7 +8,7 @@ the inverse transform's squared magnitude becomes the saliency map; tiles
 are reassembled without their padding, then thresholded into detection
 boxes.
 
-TPU-first differences: tiles are a single batched array processed by one
+Accelerator-first differences: tiles are a single batched array processed by one
 vmapped jitted function (``jnp.fft`` batches cleanly) instead of a Python
 loop; the morphological close + connected components + bounding boxes are
 JAX too (iterated label propagation), with only the final box list pulled
@@ -97,7 +97,7 @@ def label_components(mask: jnp.ndarray, max_iters: int = 128) -> jnp.ndarray:
     Each foreground pixel starts with its flat index; neighbourhood max is
     propagated until fixpoint (bounded by ``max_iters``). Background = -1.
     Replaces ``cv2.findContours`` (ref ``saliency.py:90-96``) for box
-    extraction — label propagation is pure ``reduce_window``, TPU-shaped.
+    extraction — label propagation is pure ``reduce_window``.
     """
     h, w = mask.shape
     idx = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0) * w + \

@@ -1,10 +1,10 @@
-"""Feature-based image stitching, TPU-native (no SIFT).
+"""Feature-based image stitching in JAX (no SIFT).
 
 Rebuild of the reference ``ImageStitcher`` (``members/jasraj/
 image_stitching/core.py:204-323``): SIFT + BF-kNN ratio matching + spatial
 consistency + RANSAC homography + canvas warp + DP seam carve + feathered
 composition. SIFT's scale-space keypoint machinery is branch-heavy and
-gather-bound — hostile to the VPU/MXU — so the TPU design replaces the
+gather-bound — hostile to vector hardware — so this design replaces the
 front end while keeping the same geometric estimation:
 
 1. **Phase correlation** (FFT) for a global translation prior.
@@ -12,7 +12,7 @@ front end while keeping the same geometric estimation:
    top-K corners come from ``lax.top_k`` (static K).
 3. **Patch NCC matching**: normalised 11x11 patches around each corner are
    correlated against a search window in the other image centred by the
-   phase prior — one batched einsum (MXU).
+   phase prior — one batched einsum.
 4. **Vectorised RANSAC**: 256 homography hypotheses from random 4-subsets,
    solved by batched 8x9 DLT SVD and scored in parallel (``vmap``), inlier
    refit at the end. Replaces ``cv2.findHomography(..., RANSAC, 5.0)``
@@ -138,7 +138,7 @@ def ncc_match(
 
     # Normalised cross-correlation as a GROUPED convolution: each corner's
     # unit-norm zero-mean patch is one depthwise filter over its own search
-    # window (MXU work), and the per-position normaliser comes from two
+    # window (matmul work), and the per-position normaliser comes from two
     # box-sum convs — O(N·S²) memory instead of the O(N·S²·p²) unfold the
     # previous double-vmap form materialised. Since the template is
     # zero-mean, correlating the RAW window equals correlating the
@@ -192,7 +192,7 @@ def spatial_consistency_filter(
     off) do not — yet pass any NCC *score* threshold, since the texture
     really does repeat.
 
-    TPU-native form: the N is small (corner budget, default 256), so the
+    Accelerator form: the N is small (corner budget, default 256), so the
     whole check is one dense O(N²) mask — distance matrix in the image-1
     frame, displacement-agreement matrix, and a support count — instead of
     a KD-tree. Match i survives only if ≥ ``min_support`` *other* live
@@ -277,7 +277,7 @@ def ransac_homography(
     """Best homography pts1->pts2 under inlier count; weighted final refit.
 
     All hypotheses are evaluated in parallel (vmap over ``n_hyp`` 4-point
-    DLTs) — the TPU form of the RANSAC loop in ``cv2.findHomography``.
+    DLTs) — the batched form of the RANSAC loop in ``cv2.findHomography``.
     """
     n = pts1.shape[0]
     keys = jax.random.split(key, n_hyp)

@@ -71,12 +71,10 @@ def dsm_update(
     surface; iterating lets the majority surface capture the cell (the
     MAD-gate convergence behaviour of ``grid_fuse``'s second pass).
 
-    TPU-shaped: the per-cell statistics come from ONE sort by cell id plus
-    segmented scans (:mod:`pcmi_tpu.ops.segmented`) instead of per-round
-    scatter/gather — random access runs at ~140 M elem/s on TPU vs
-    ~730 M elem/s streaming, which made the gather formulation ~7x slower
-    end to end. The final grid write compacts per-segment totals to one
-    row per CELL before scattering (:func:`grid_segment_sums`), so the
+    The per-cell statistics come from ONE sort by cell id plus segmented
+    scans (:mod:`pcmi_tpu.ops.segmented`) instead of per-round
+    scatter/gather. The final grid write compacts per-segment totals to
+    one row per CELL before scattering (:func:`grid_segment_sums`), so the
     random-access cost is cell-sized, not point-sized.
     """
     ny, nx = shape
@@ -103,7 +101,6 @@ def dsm_update(
     # so the blocked run sums stay finite (see segment_totals_at_points)
     v = jnp.where(w > 0, v, 0.0)
     # cell-sized compacted scatter instead of the point-sized segment_sum
-    # (measured 18.5 -> ~4 ms at 1.18 M points / 65 k cells on-chip)
     packed = grid_segment_sums(ids, boundary, (w, w * v, w * v * v), num)
     return StreamingDSM(
         wsum=acc.wsum + packed[:, 0].reshape(ny, nx),

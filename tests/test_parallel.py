@@ -25,13 +25,13 @@ def test_eight_virtual_devices():
 
 def test_multihost_helpers_single_process():
     from pcmi_tpu.parallel import initialize_multihost, make_multihost_mesh
-    from pcmi_tpu.parallel.multihost import DCN_AXIS
+    from pcmi_tpu.parallel.multihost import HOST_AXIS
 
     # no coordinator anywhere -> a no-op, not a crash
     assert initialize_multihost() is False
     mesh = make_multihost_mesh(data=2)
-    assert mesh.axis_names == (DCN_AXIS, "data", "tile")
-    assert mesh.shape[DCN_AXIS] == 1
+    assert mesh.axis_names == (HOST_AXIS, "data", "tile")
+    assert mesh.shape[HOST_AXIS] == 1
     assert mesh.shape["data"] == 2 and mesh.shape["tile"] == 4
     with pytest.raises(ValueError):
         make_multihost_mesh(data=3)

@@ -9,8 +9,7 @@ numerically on HELD-OUT data:
   (ref capability ``satdiff.py:139-233`` / ``plugin.py:143-211``)
 
 The short CPU budgets here are calibrated to clear the gates with margin;
-``bench_generative.py`` runs the full budgets on the TPU and records
-BENCH_GENERATIVE.json.
+``bench_generative.py`` runs the full budgets on the accelerator.
 """
 
 import sys

@@ -1,10 +1,10 @@
 """Multi-scene accuracy harness (fast CPU subset).
 
 Every scene family must pass the ≤1 m height-RMSE gate with the PRODUCTION
-fast paths on (bf16 volumes, right_subpixel=False, norm_subsample=2,
+fast paths on (right_subpixel=False, norm_subsample=2,
 right_sgm="horizontal" — the StereoConfig defaults): no fast path is
-accepted on the single scene it was tuned on. The full-size sweep runs on
-TPU in bench.py; this is the per-commit regression subset.
+accepted on the single scene it was tuned on. This is the per-commit
+regression subset of the full-size sweep.
 """
 
 import pytest

@@ -1,4 +1,4 @@
-"""Stereo matcher tests: JAX/TPU path vs CPU NumPy reference + ground truth.
+"""Stereo matcher tests: JAX path vs CPU NumPy reference + ground truth.
 
 Covers BASELINE.json config 1 (CPU NumPy parity) and the <=1 m height-RMSE
 target on synthetic truth.
@@ -155,10 +155,10 @@ def test_refine_fills_invalid(pair):
 def test_bf16_cost_volume_matches_f32(pair):
     """cost_dtype="bfloat16" must agree with f32 to sub-pixel tolerance.
 
-    The TPU production path stores cost/aggregation volumes in bf16
-    (StereoConfig.cost_dtype="auto"); CPU tests resolve "auto" to f32, so
-    this is the explicit cross-dtype check that the quantisation stays
-    below the matcher's own sub-pixel noise floor.
+    bf16 volume storage (StereoConfig.cost_dtype) halves the matcher's
+    volume traffic; "auto" resolves to f32, so this is the explicit
+    cross-dtype check that the quantisation stays below the matcher's own
+    sub-pixel noise floor.
     """
     import dataclasses
 
@@ -213,3 +213,76 @@ def test_disp_stride_validation():
 
     with _pytest.raises(ValueError):
         StereoConfig(disp_stride=3)
+
+
+@pytest.mark.parametrize("shape", [(16, 24, 40), (20, 19, 33)])
+@pytest.mark.parametrize("dirs", ["4", "h", "v"])
+def test_sgm_aggregate_matches_numpy_ref(rng, shape, dirs):
+    """XLA scans vs the NumPy recurrence, incl. shapes off any tile size."""
+    from pcmi_tpu.ops.stereo.matching import sgm_aggregate
+
+    vol = rng.uniform(0, 1, shape).astype(np.float32)
+    cfg = StereoConfig(max_disp=32, sgm_backend="xla")
+    got = np.asarray(sgm_aggregate(jnp.asarray(vol), cfg, dirs=dirs))
+    want = nref.sgm_aggregate_np(vol, cfg.sgm_p1, cfg.sgm_p2, dirs=dirs)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("subpixel", [True, False])
+@pytest.mark.parametrize("with_margin", [True, False])
+def test_wta_disparity_matches_numpy_ref(rng, stride, subpixel,
+                                         with_margin):
+    from pcmi_tpu.ops.stereo.matching import wta_disparity
+
+    vol = rng.uniform(0, 1, (12, 20, 24)).astype(np.float32)
+    vol[0, :2] = 0.0     # argmin on the first slice: no parabola
+    vol[-1, 2:4] = -1.0  # ... and on the last
+    got = wta_disparity(jnp.asarray(vol), -6, with_margin=with_margin,
+                        subpixel=subpixel, stride=stride)
+    want = nref.wta_np(vol, -6, stride=stride, subpixel=subpixel,
+                       with_margin=with_margin)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("fill", [1.0, 1e4])
+def test_derive_right_volume_matches_numpy_shift(rng, stride, fill):
+    """C_R(y, x, i) = C_L(y, x + d_i, i), ``fill`` off the canvas."""
+    from pcmi_tpu.ops.stereo.matching import derive_right_volume
+
+    d, h, w, d_min = 10, 6, 30, -8
+    vol = rng.uniform(0, 1, (d, h, w)).astype(np.float32)
+    want = np.full_like(vol, fill)
+    for i in range(d):
+        s = d_min + i * stride
+        for x in range(w):
+            if 0 <= x + s < w:
+                want[i, :, x] = vol[i, :, x + s]
+    got = derive_right_volume(jnp.asarray(vol), d_min, fill=fill,
+                              stride=stride)
+    np.testing.assert_array_equal(np.asarray(got), want)
+
+
+def test_compute_disparity_diagonal_mode(rng):
+    """right_sgm="diagonal" is "derived" with an integer right-view WTA."""
+    from pcmi_tpu.ops.stereo.matching import wta_disparity
+
+    left = rng.uniform(0, 1, (40, 64)).astype(np.float32)
+    # shift columns by 3 for a plausibly matchable pair
+    right = np.roll(left, -3, axis=1).astype(np.float32)
+    v = jnp.ones((40, 64), bool)
+    base = dict(block_size=5, census_window=5, max_disp=8,
+                band_recover=False, sgm_backend="xla")
+    cfg_diag = StereoConfig(right_sgm="diagonal", **base)
+    cfg_der = StereoConfig(right_sgm="derived", **base)
+    l, r = jnp.asarray(left), jnp.asarray(right)
+    out_diag = compute_disparity(l, r, v, v, cfg_diag)
+    out_der = compute_disparity(l, r, v, v, cfg_der)
+    np.testing.assert_array_equal(np.asarray(out_diag.disparity),
+                                  np.asarray(out_der.disparity))
+    dr = np.asarray(out_diag.disparity_right)
+    np.testing.assert_array_equal(dr, np.round(dr))  # integer WTA
+    assert (np.abs(dr - np.asarray(out_der.disparity_right)) <= 1.0).all()
